@@ -1,5 +1,5 @@
-"""dr_using_scv_od_tpu: a TPU-native dynamic-aware LiDAR odometry & mapping
-engine (JAX/XLA/Pallas), built from scratch with the capabilities of the
+"""dr_using_scv_od_tpu: a dynamic-aware LiDAR odometry & mapping engine
+in JAX/XLA, built from scratch with the capabilities of the
 SCV-OD reference (Yixin-F/DR-Using-SCV-OD).
 
 Layer map (bottom-up; cf. SURVEY.md section 1):

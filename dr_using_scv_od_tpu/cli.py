@@ -559,8 +559,8 @@ def cmd_intensity_report(args):
 
 def cmd_view(args):
     """Headless snapshot of a PCD artifact (tool/viewer.py analog: the
-    reference pops an open3d window on a seg/<id>_seg.pcd; on a TPU host we
-    render top-down + side orthographic projections to a PNG instead)."""
+    reference pops an open3d window on a seg/<id>_seg.pcd; on a headless
+    host we render top-down + side orthographic projections to a PNG)."""
     import matplotlib
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -759,6 +759,8 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_intensity_report)
 
     args = p.parse_args(argv)
+    from .utils import compile_cache
+    compile_cache.enable()
     return args.fn(args)
 
 

@@ -5,7 +5,9 @@ Twin of the reference's offline chain (tool/analysis.py:158-194 +
 src/evaluate.cpp kd-radius matching), for evaluating maps produced by
 external tools or earlier runs. The kd-tree 1-NN becomes a tiled
 brute-force distance min - distance matrices are matmul-shaped, which is
-exactly what the MXU wants (||a-b||^2 = |a|^2 + |b|^2 - 2 a.b).
+what matrix units want (||a-b||^2 = |a|^2 + |b|^2 - 2 a.b). The
+product runs at full f32 precision: the expansion cancels, so a
+reduced-precision (TF32) product would swamp small distances.
 """
 
 from __future__ import annotations
@@ -21,14 +23,15 @@ def nn_distances(query: jnp.ndarray, ref: jnp.ndarray,
                  chunk: int = 4096) -> jnp.ndarray:
     """For each query point, squared distance to the nearest ref point.
     query [N,3], ref [M,3] -> [N] f32. Tiled so the [chunk, M] distance
-    block streams through the MXU."""
+    block streams through one matmul."""
     ref = jnp.asarray(ref, jnp.float32)
     ref_sq = jnp.sum(ref * ref, axis=1)
 
     @jax.jit
     def one_chunk(q):
         q_sq = jnp.sum(q * q, axis=1, keepdims=True)
-        d = q_sq + ref_sq[None, :] - 2.0 * (q @ ref.T)
+        d = q_sq + ref_sq[None, :] - 2.0 * jnp.matmul(
+            q, ref.T, precision="highest")
         return jnp.min(d, axis=1)
 
     n = query.shape[0]

@@ -8,7 +8,7 @@ because this framework keeps exact point identity end-to-end, the
 correspondence is exact (every kept point IS a ground-truth point), which
 equals the kd-NN metric at inlier threshold -> 0.
 
-An MXU-tiled brute-force NN (eval/artifact.py:nn_distances) backs the
+A tiled brute-force NN (eval/artifact.py:nn_distances) backs the
 artifact-level variant for parity runs against externally produced maps.
 """
 

@@ -3,7 +3,7 @@
 The reference compares against ERASOR externally (doc/note.txt:6 via the
 `ufo_erasor` tool, src/erasor_dynamic.cpp) but does not implement it; the
 north star (BASELINE.json) requires ERASOR-style removal as a first-class
-stage. This is a TPU-native implementation of the method's core
+stage. This is an accelerator-native implementation of the method's core
 (Lim et al., RA-L 2021), not a port:
 
   * R-POD: map and scan points bin into an egocentric polar grid
@@ -129,8 +129,9 @@ def clean_map(map_xyz: jnp.ndarray, map_valid: jnp.ndarray,
     gmask = in_bin & (pz < (lpr_h[:, None] + cfg.th_seeds))
     for _ in range(cfg.iterations):
         normal, mean, _, _ = plane_ops.fit_plane(pts, gmask)
-        dist = jnp.einsum('bkc,bc->bk', pts, normal)
-        th = cfg.th_dist + jnp.einsum('bc,bc->b', normal, mean)
+        dist = jnp.einsum('bkc,bc->bk', pts, normal, precision="highest")
+        th = cfg.th_dist + jnp.einsum('bc,bc->b', normal, mean,
+                                         precision="highest")
         gmask = in_bin & (dist < th[:, None])
 
     # dynamic: non-ground map points inside candidate bins

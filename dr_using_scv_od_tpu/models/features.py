@@ -8,7 +8,7 @@ Covers the reference's descriptor API surface:
     batched 3x3 eigensolver anyway), `reference_features` reproduces the
     shipped constant-slot behaviour for parity;
   * getDescriptorByEnsembleShape (src/ssc.cpp:760-786): PCL ESF folded to
-    10 bins. TPU-native replacement: a 10-bin histogram of normalized
+    10 bins. Array-program replacement: a 10-bin histogram of normalized
     pairwise point distances from a fixed random sample - the same "shape
     distribution" family (D2 of Osada et al.) ESF builds on, computable as
     one batched matmul-shaped distance block (the reference's fold of the
@@ -77,7 +77,7 @@ def shape_histogram(xyz: jnp.ndarray, point_cluster: jnp.ndarray,
                     n_bins: int = 10, seed: int = 0) -> jnp.ndarray:
     """[C, n_bins] D2 shape-distribution histogram per cluster: pairwise
     distances between a fixed pseudo-random point sample, normalized by the
-    cluster's max sample distance. TPU-friendly replacement for the folded
+    cluster's max sample distance. Vectorized replacement for the folded
     ESF signature (src/ssc.cpp:770-779)."""
     C = n_clusters
     N = xyz.shape[0]

@@ -1,7 +1,7 @@
 """Loop-closure detection and verification.
 
 NEW capability completing the pose-graph backend (the reference has no
-loop closures - GT poses need none). Fixed-shape TPU design:
+loop closures - GT poses need none). Fixed-shape design:
 
   1. candidate proposal: pairwise distances between estimated keyframe
     positions; pairs closer than `radius` but more than `min_gap` frames
@@ -76,7 +76,8 @@ def detect(xyz: jnp.ndarray, valid: jnp.ndarray, poses: jnp.ndarray,
         j_s = jnp.maximum(j, 0)
         # register scan j against scan i, warm-started with the current
         # pose estimates
-        T_init = geometry.inverse_se3(poses[i_s]) @ poses[j_s]
+        T_init = geometry.matmul(geometry.inverse_se3(poses[i_s]),
+                                 poses[j_s])
         res = gicp.scan_to_scan(xyz[j_s], valid[j_s] & use,
                                 xyz[i_s], valid[i_s] & use,
                                 cfg.gicp, T_init=T_init)

@@ -8,7 +8,7 @@ project every other frame's clusters into the base curved-voxel grid via
 relative poses, and fuse base clusters that one foreign cluster co-occupies
 with >= `occupancy` voxel-overlap ratio.
 
-Same TPU formulation as tracking: sort-dedup of (cluster, voxel) pairs +
+Same formulation as tracking: sort-dedup of (cluster, voxel) pairs +
 one scatter-add contingency matrix per frame, fused over a `lax.scan`.
 Conflicting fusions resolve to the minimum base row (deterministic;
 the reference's in-loop mutation order is not reproducible anyway).
@@ -61,7 +61,7 @@ def initialize(xyz: jnp.ndarray, point_voxel: jnp.ndarray,
     def step(carry, i):
         base_grid, merge_count = carry
         is_base = i == base
-        T_bi = base_pose_inv @ poses[i]
+        T_bi = geometry.matmul(base_pose_inv, poses[i])
 
         pv = point_voxel[i]
         pvalid = point_valid[i] & (pv >= 0)

@@ -74,12 +74,12 @@ def estimate_window_poses_scan_to_map(xyz: jnp.ndarray, valid: jnp.ndarray,
     def step(carry, t):
         vm, T_world, T_rel_prev = carry
         # warm start: constant velocity in the world frame
-        T_init = T_world @ T_rel_prev
+        T_init = geometry.matmul(T_world, T_rel_prev)
         src = xyz[t + 1]
         res = gicp.register_pyramid(src, valid[t + 1], vm, cfg.gicp,
                                     T_init=T_init)
         T_new = res.T            # world_T_frame (map frame == frame 0)
-        T_rel = geometry.inverse_se3(T_world) @ T_new
+        T_rel = geometry.matmul(geometry.inverse_se3(T_world), T_new)
         warped = geometry.transform_points(T_new, src)
         vm = vm.merge(gicp.build_voxel_map(warped, valid[t + 1], cfg.gicp))
         return (vm, T_new, T_rel), (T_new, T_rel, res.n_corr,
@@ -98,6 +98,8 @@ def ate_rmse(est_poses: jnp.ndarray, gt_poses: jnp.ndarray) -> jnp.ndarray:
     from ..ops import geometry
     e0 = geometry.inverse_se3(est_poses[0])
     g0 = geometry.inverse_se3(gt_poses[0])
-    e = jnp.einsum('ij,fjk->fik', e0, est_poses)[:, :3, 3]
-    g = jnp.einsum('ij,fjk->fik', g0, gt_poses)[:, :3, 3]
+    e = jnp.einsum('ij,fjk->fik', e0, est_poses,
+                   precision="highest")[:, :3, 3]
+    g = jnp.einsum('ij,fjk->fik', g0, gt_poses,
+                   precision="highest")[:, :3, 3]
     return jnp.sqrt(jnp.mean(jnp.sum((e - g) ** 2, axis=-1)))

@@ -1,4 +1,4 @@
-"""Patchwork ground segmentation, TPU-native.
+"""Patchwork ground segmentation as batched array programs.
 
 Re-design of the reference's header-only PatchWork
 (include/patchwork.h:38-504): the serial per-patch loop (~420 patches x 3
@@ -120,10 +120,10 @@ def estimate_ground(xyz: jnp.ndarray, valid: jnp.ndarray,
     binned = pid < P
     z = xyz[..., 2]
 
-    # All per-patch reductions below run as ONE-HOT MATMULS on the MXU
-    # ([P, N] selector @ [N, F] features) instead of segment-sum scatters:
-    # TPU scatters serialize (~2 ms each, ~30 of them = the old 49 ms
-    # patchwork stage); the matmuls total < 2 ms.
+    # All per-patch reductions below run as ONE-HOT MATMULS
+    # ([P, N] selector @ [N, F] features) instead of ~30 segment-sum
+    # scatters (a choice made for the previous accelerator, queued for
+    # measurement on the H100).
     #
     # The [P, N] selector is built ONCE and shared by every reduction -
     # per-call masks move to the FEATURE side ((oh & mask) @ F ==
@@ -148,8 +148,8 @@ def estimate_ground(xyz: jnp.ndarray, valid: jnp.ndarray,
     margin = cfg.adaptive_seed_selection_margin * cfg.sensor_height
     pid_c = jnp.clip(pid, 0, P - 1)
     # per-point reads of per-patch tables run as select trees / matmuls
-    # against the shared selector - [N]-shaped gathers from small tables
-    # cost ~3-4 ms each on TPU (segment_ops.small_table_lookup)
+    # against the shared selector instead of [N]-shaped gathers from
+    # small tables (segment_ops.small_table_lookup)
     zone0_pt = segment_ops.small_table_lookup(zone0, pid_c, 1)
     # zone0 skips the sorted prefix below the margin (patchwork.h:245-253)
     in_hist = binned & ~(zone0_pt & (z < margin))
@@ -181,7 +181,7 @@ def estimate_ground(xyz: jnp.ndarray, valid: jnp.ndarray,
 
     # ---- iterative plane fit: one [P, N] @ [N, 10] moment matmul per
     # masked fit ('highest' precision - second moments need the f32 path,
-    # bf16 MXU passes would swamp the ~1e-2 m^2 patch variances)
+    # bf16 matmul passes would swamp the ~1e-2 m^2 patch variances)
     x, y, zz = xyz[:, 0], xyz[:, 1], xyz[:, 2]
     moment_feats = jnp.stack(
         [jnp.ones_like(x), x, y, zz, x * x, y * y, zz * zz,

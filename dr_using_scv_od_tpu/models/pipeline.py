@@ -3,7 +3,7 @@
 Analog of `SSC::segDF` (src/ssc.cpp:1428-1548): per-frame
 process -> segment -> recognize, then pairwise tracking over the window.
 Here the per-frame stage is one jittable function (`process_frame`) mapped
-over the frame axis (vmap/shard_map; the reference loops serially,
+over the frame axis (lax.map/shard_map; the reference loops serially,
 src/ssc.cpp:1435-1445), and tracking is a `lax.scan` over consecutive pairs
 (models/tracking.py) because its cluster mutations are a Markov recurrence.
 """
@@ -66,16 +66,14 @@ def process_frame(xyz: jnp.ndarray, intensity: jnp.ndarray,
 def process_window(xyz: jnp.ndarray, intensity: jnp.ndarray,
                    valid: jnp.ndarray, poses: jnp.ndarray,
                    cfg: PipelineConfig) -> FrameOutput:
-    """Map the frame pipeline over a [F, ...] window (data-parallel axis;
-    sharded variant in parallel/sharded_pipeline.py).
+    """Map the frame pipeline over a [F, ...] window, one frame after
+    another (sharded variant in parallel/sharded_pipeline.py).
 
-    On TPU the frame axis runs as `lax.map` - the segmentation stage uses
-    Pallas kernels, whose TPU lowering cannot be vmapped, and a single
-    chip executes frames sequentially either way. The CPU/test path keeps
-    vmap (batch-fused XLA ops are faster there)."""
+    `lax.map` rather than `vmap`: on an H100 80GB HBM3 (700 W limit) the
+    6-frame full-width `run_window` took 72.2 ms with `lax.map` against
+    75.0 ms with `vmap`, with 0.68 GB of XLA temporaries against 3.87 GB.
+    One frame already fills the card, so batching frames buys nothing."""
     fn = functools.partial(process_frame, cfg=cfg)
-    if jax.default_backend() == "cpu":
-        return jax.vmap(fn)(xyz, intensity, valid, poses)
     return jax.lax.map(lambda a: fn(*a), (xyz, intensity, valid, poses))
 
 
@@ -155,8 +153,8 @@ def run_window(xyz: jnp.ndarray, intensity: jnp.ndarray,
     C = cfg.shapes.max_clusters
     pc = tr.point_cluster
 
-    # per-point dynamic flag via the select tree (a [F,N] gather from the
-    # [F,C] state table costs ~4 ms/frame on TPU)
+    # per-point dynamic flag via the select tree instead of an [F,N]
+    # gather from the [F,C] state table
     dyn_row = tr.tables.state == 1                     # [F, C] bool
     pc_safe = jnp.clip(pc, 0, C - 1)
     is_dyn = jax.vmap(segment_ops.small_table_lookup,

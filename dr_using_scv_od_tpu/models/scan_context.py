@@ -74,7 +74,8 @@ def similarity(query: jnp.ndarray, bank: jnp.ndarray,
     bn = bank / jnp.maximum(
         jnp.linalg.norm(bank.reshape(bank.shape[0], -1), axis=1),
         1e-9)[:, None, None]
-    sim = jnp.einsum('ars,krs->ka', qn, bn.astype(qn.dtype))  # [K,S]
+    sim = jnp.einsum('ars,krs->ka', qn, bn.astype(qn.dtype),
+                     precision="highest")  # [K,S]
     best = jnp.argmax(sim, axis=1).astype(jnp.int32)
     score = jnp.max(sim, axis=1)
     score = jnp.where(bank_valid, score, -jnp.inf)

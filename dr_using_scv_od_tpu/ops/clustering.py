@@ -1,6 +1,6 @@
 """Connected-component labeling on the curved-voxel grid.
 
-TPU-native replacement of the reference's CVC clustering
+Vectorized replacement of the reference's CVC clustering
 (`SSC::clusterAndCreateFrame` + `mergeClusters`, src/ssc.cpp:299-419).
 The reference unions points through 3x3x3 voxel neighbourhoods with an
 eager O(N) full-rescan merge; the fixpoint it reaches is exactly the
@@ -92,8 +92,10 @@ def connected_components(occupied: jnp.ndarray, max_iters: int = 64
     # Each iteration: (a) segmented min-scans spread labels across whole
     # occupied runs of the sector and range axes (log-depth, shift-only);
     # (b) a 3x3x3 separable neighbour min hops across diagonal/azimuth
-    # connections; (c) a periodic pointer-jump (gathers - expensive on TPU,
-    # so amortized) collapses remaining label chains.
+    # connections; (c) a periodic pointer-jump (gathers, amortized over
+    # two iterations - a cadence chosen for the previous accelerator,
+    # queued for measurement on the H100) collapses remaining label
+    # chains.
     JUMP_EVERY = 2
 
     def body(state):
@@ -120,13 +122,14 @@ def connected_components(occupied: jnp.ndarray, max_iters: int = 64
 
 
 def _cumsum_matmul(bits: jnp.ndarray, block: int = 1024) -> jnp.ndarray:
-    """Inclusive cumsum of a 0/1 int vector as ONE MXU matmul.
+    """Inclusive cumsum of a 0/1 int vector as ONE matmul.
 
-    XLA's native [1.3M] cumsum costs ~3.4 ms on v5e (latency-bound
-    log-depth scan); reshaping to [G/B, B] rows and multiplying by an
-    upper-triangular ones matrix runs the same reduction on the MXU in
-    ~0.3 ms. Exact: 0/1 entries are bf16-exact and every partial sum
-    (< 2^24) accumulates in f32."""
+    Reshapes to [G/B, B] rows and multiplies by an upper-triangular ones
+    matrix instead of XLA's log-depth cumsum scan (a choice made for the
+    previous accelerator; against `jnp.cumsum` on the H100 it is queued
+    for measurement). Exact: 0/1
+    entries are bf16-exact and every partial sum (< 2^24) accumulates in
+    f32."""
     n = bits.shape[0]
     nb = -(-n // block)
     pad = nb * block - n
@@ -145,9 +148,9 @@ def compact_grid_labels(root_grid: jnp.ndarray, occupied: jnp.ndarray,
     """Sort-free cluster compaction straight off the voxel grid.
 
     Replaces `compact_labels` + `labels_to_grid` on the hot path: those
-    cost a 131k-element sort/unique plus log-depth searchsorted gathers
-    (~128 ms/frame on TPU v5e); this formulation is one cumsum + one
-    gather + one scatter over the [G] grid (~a few ms).
+    cost a 131k-element sort/unique plus log-depth searchsorted gathers;
+    this formulation is one cumsum, one searchsorted over the C roots and
+    one [N] gather.
 
     Root voxels (root_grid[g] == g, occupied) are numbered by an exclusive
     prefix count in ascending flat-id order - the SAME compact-id order the
@@ -180,8 +183,9 @@ def compact_grid_labels(root_grid: jnp.ndarray, occupied: jnp.ndarray,
 
     # compact id per voxel WITHOUT a [G] gather: rank of root_grid in the
     # sorted 512-entry roots table - 'compare_all' runs as C fused [G]
-    # compare+add passes (a 1.3M random gather costs ~12 ms on v5e; this
-    # is ~3 ms and overflowed clusters fall out naturally as misses)
+    # compare+add passes instead of a [G] random gather (a choice made for
+    # the previous accelerator, queued for measurement on the H100), and
+    # overflowed clusters fall out naturally as misses
     pos = jnp.searchsorted(roots, root_grid, side="left",
                            method="compare_all")
     # occupied cells hold genuine root ids, so membership needs no table

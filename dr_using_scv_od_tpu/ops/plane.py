@@ -3,7 +3,7 @@
 The reference runs one Eigen::JacobiSVD per patch inside a serial loop
 (include/patchwork.h:217-232, ~420 calls per scan); here all patches (and all
 voxels, for GICP covariances) are solved as one batched closed-form
-symmetric 3x3 eigen problem - small-matrix-heavy work the VPU handles well.
+symmetric 3x3 eigen problem - small-matrix-heavy elementwise work.
 """
 
 from __future__ import annotations
@@ -107,7 +107,8 @@ def masked_mean_cov(xyz: jnp.ndarray, mask: jnp.ndarray
     safe_n = jnp.maximum(n, 1.0)
     mean = jnp.sum(xyz * m[..., None], axis=-2) / safe_n[..., None]
     d = (xyz - mean[..., None, :]) * m[..., None]
-    cov = jnp.einsum('...ki,...kj->...ij', d, d) / safe_n[..., None, None]
+    cov = jnp.einsum('...ki,...kj->...ij', d, d,
+                     precision="highest") / safe_n[..., None, None]
     return mean, cov, n
 
 

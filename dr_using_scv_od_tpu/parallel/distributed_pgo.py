@@ -1,7 +1,7 @@
 """Distributed pose-graph optimization: keyframe-block edge sharding.
 
 The north star (BASELINE.json) calls for the pose graph partitioned by
-keyframe blocks across a pod slice with collective reductions. Design:
+keyframe blocks across a device mesh with collective reductions. Design:
 
   * edges (odometry + loop closures) sort by min keyframe id, so a
     contiguous edge shard corresponds to a keyframe block; each device
@@ -74,8 +74,10 @@ def _block_optimize(poses, ei, ej, eT, ew, *, axis: str, gn_iters: int,
         Ji, Jj = pgo._edge_jacobians(g)
         w = g.edge_w[:, None]
         b = jnp.zeros((F, 6))
-        b = b.at[g.edge_i].add(jnp.einsum('eba,eb->ea', Ji, r) * w)
-        b = b.at[g.edge_j].add(jnp.einsum('eba,eb->ea', Jj, r) * w)
+        b = b.at[g.edge_i].add(jnp.einsum('eba,eb->ea', Ji, r,
+                                             precision="highest") * w)
+        b = b.at[g.edge_j].add(jnp.einsum('eba,eb->ea', Jj, r,
+                                             precision="highest") * w)
         b = jax.lax.psum(b, axis)
         b = -b * gauge
 
@@ -98,7 +100,8 @@ def _block_optimize(poses, ei, ej, eT, ew, *, axis: str, gn_iters: int,
                                     (jnp.zeros((F, 6)), b, b), None,
                                     length=cg_iters)
         dx = x * gauge
-        new_p = jax.vmap(lambda T, xi: T @ geometry.exp_se3(xi))(p, dx)
+        new_p = jax.vmap(
+            lambda T, xi: geometry.matmul(T, geometry.exp_se3(xi)))(p, dx)
         err = jax.lax.psum(jnp.sum(r * r), axis)
         return new_p, err
 

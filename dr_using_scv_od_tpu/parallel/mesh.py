@@ -2,8 +2,8 @@
 
 The reference is single-process with OpenMP-only parallelism
 (include/utility.h:399, SURVEY.md section 2.4); every distribution strategy
-here is new, TPU-native design: jax.sharding meshes with XLA collectives
-over ICI/DCN instead of any message-passing port.
+here is new design: jax.sharding meshes with XLA collectives instead of
+any message-passing port.
 
 Axis conventions:
   dp - data parallel over the frame axis (per-scan segmentation stages are

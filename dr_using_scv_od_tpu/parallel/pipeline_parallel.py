@@ -1,6 +1,6 @@
 """Pipeline parallelism: the per-frame pipeline as a stage pipeline over a
 `pp` mesh axis (SURVEY.md section 2.4 - the reference has no parallelism
-beyond OpenMP; this is the TPU-native PP design promised there).
+beyond OpenMP; this is the accelerator-native PP design promised there).
 
 GPipe-style schedule without weights: the stages are *compute* stages of
 the per-frame pipeline (ground segmentation -> curved-voxel segmentation ->
@@ -52,7 +52,7 @@ class PPBuffer(NamedTuple):
     label_grid: jnp.ndarray     # [G] i32
     # NB: per-voxel intensity stats (VoxelGrid count/mean/var) are consumed
     # INSIDE the segment stage and collected by no downstream stage, so they
-    # deliberately do not ride the ppermute handoff (dead ICI traffic).
+    # deliberately do not ride the ppermute handoff (dead link traffic).
     table: ClusterTable         # [C] rows
     feats: Features             # [C] slots  (stage: recognize)
     n_clusters: jnp.ndarray     # scalar i32

@@ -1,10 +1,10 @@
 """Scaling benchmark harness: frames/s at 1..N devices.
 
 The north star requires frames/s measured at 1 chip / 1 host / N hosts
-with >=80% scaling efficiency (BASELINE.json). On this single-chip CI the
+with >=80% scaling efficiency (BASELINE.json). On a CPU-only host the
 harness runs on the virtual CPU mesh to validate the scaling SHAPE (the
-sharded program, collective layout and efficiency accounting); on real
-slices the same entry point measures actual ICI scaling.
+sharded program, collective layout and efficiency accounting); on a
+multi-card host the same entry point measures actual scaling.
 """
 
 from __future__ import annotations

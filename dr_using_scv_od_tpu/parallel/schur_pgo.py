@@ -20,9 +20,9 @@ module is the direct Schur design:
 
 Per GN iteration: 2 collectives (psum of the separator system, psum of the
 scattered interior update) regardless of block size - versus one psum per
-CG *iteration* in distributed_pgo.py. Schur wins when ICI latency dominates
-(deep graphs, many CG iterations); CG wins on memory (never materializes
-dense blocks). Both coexist deliberately.
+CG *iteration* in distributed_pgo.py. Schur wins when collective latency
+dominates (deep graphs, many CG iterations); CG wins on memory (never
+materializes dense blocks). Both coexist deliberately.
 
 Gauge freedom is fixed with a strong prior on keyframe 0 (a separator by
 construction).
@@ -137,12 +137,18 @@ def _block_step(poses, ei, ej, eT, ew, *, sep_ids, K: int, axis: str,
     gvec = jnp.zeros((L, 6))
     JiW = Ji * w[..., None]                 # weight applied once per J
     JjW = Jj * w[..., None]
-    H = H.at[si, si].add(jnp.einsum('eba,ebc->eac', JiW, JiW))
-    H = H.at[si, sj].add(jnp.einsum('eba,ebc->eac', JiW, JjW))
-    H = H.at[sj, si].add(jnp.einsum('eba,ebc->eac', JjW, JiW))
-    H = H.at[sj, sj].add(jnp.einsum('eba,ebc->eac', JjW, JjW))
-    gvec = gvec.at[si].add(-jnp.einsum('eba,eb->ea', JiW, r))
-    gvec = gvec.at[sj].add(-jnp.einsum('eba,eb->ea', JjW, r))
+    H = H.at[si, si].add(jnp.einsum('eba,ebc->eac', JiW, JiW,
+                                    precision="highest"))
+    H = H.at[si, sj].add(jnp.einsum('eba,ebc->eac', JiW, JjW,
+                                    precision="highest"))
+    H = H.at[sj, si].add(jnp.einsum('eba,ebc->eac', JjW, JiW,
+                                    precision="highest"))
+    H = H.at[sj, sj].add(jnp.einsum('eba,ebc->eac', JjW, JjW,
+                                    precision="highest"))
+    gvec = gvec.at[si].add(-jnp.einsum('eba,eb->ea', JiW, r,
+                                       precision="highest"))
+    gvec = gvec.at[sj].add(-jnp.einsum('eba,eb->ea', JjW, r,
+                                       precision="highest"))
 
     Hm = H.transpose(0, 2, 1, 3).reshape(L * 6, L * 6)
     gv = gvec.reshape(L * 6)
@@ -164,8 +170,8 @@ def _block_step(poses, ei, ej, eT, ew, *, sep_ids, K: int, axis: str,
 
     AinvB = jnp.linalg.solve(A, B)                          # [6K, 6S]
     Ainvg = jnp.linalg.solve(A, gi)                         # [6K]
-    S_loc = C - B.T @ AinvB
-    r_loc = gs - B.T @ Ainvg
+    S_loc = C - geometry.matmul(B.T, AinvB)
+    r_loc = gs - geometry.matmul(B.T, Ainvg)
 
     # global separator system: one psum; lam + gauge prior added once
     S_glob = jax.lax.psum(S_loc, axis)
@@ -176,7 +182,7 @@ def _block_step(poses, ei, ej, eT, ew, *, sep_ids, K: int, axis: str,
     xs = jnp.linalg.solve(S_glob, r_glob)                   # [6S] replicated
 
     # local back-substitution
-    xi = Ainvg - AinvB @ xs                                 # [6K]
+    xi = Ainvg - geometry.matmul(AinvB, xs)                 # [6K]
     xi = jnp.where(ivm, xi, 0.0)
 
     # assemble the global update: scatter interiors (psum) + separators
@@ -185,7 +191,8 @@ def _block_step(poses, ei, ej, eT, ew, *, sep_ids, K: int, axis: str,
     dx = jax.lax.psum(dx, axis)
     dx = dx.at[sep_ids].set(xs.reshape(S, 6))
     dx = dx.at[0].set(0.0)                                  # gauge
-    new_poses = jax.vmap(lambda T, d: T @ geometry.exp_se3(d))(poses, dx)
+    new_poses = jax.vmap(
+        lambda T, d: geometry.matmul(T, geometry.exp_se3(d)))(poses, dx)
     err = jax.lax.psum(jnp.sum(r * r), axis)
     return new_poses, err
 

@@ -8,7 +8,7 @@ single-process):
     contiguous block of frames (dp axis).
   * Tracking couples only consecutive frames (src/ssc.cpp:1450-1452), so a
     device needs exactly ONE remote frame: the first frame of its right
-    neighbour's block. That halo moves with a single `ppermute` over ICI.
+    neighbour's block. That halo moves with a single `ppermute`.
   * DELIBERATE DIVERGENCE: the reference's tracking mutates frame t+1
     before pair (t+1, t+2) runs, a strictly sequential chain. Sharding
     breaks the chain at block boundaries: the boundary pair is judged

@@ -17,8 +17,20 @@ Conventions:
 
 from __future__ import annotations
 
-from flax import struct
+import dataclasses
+
+import jax
 import jax.numpy as jnp
+
+
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree whose fields are all
+    leaves (flattened in field order), with `replace(**changes)`."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(
+        cls, data_fields=[f.name for f in dataclasses.fields(cls)],
+        meta_fields=[])
 
 # Cluster type codes (reference: ssc/building_, tree_, car_ in
 # config/semantickitti.yaml:57-59).
@@ -33,7 +45,7 @@ STATE_STATIC = 0
 STATE_DYNAMIC = 1
 
 
-@struct.dataclass
+@pytree_dataclass
 class PointCloud:
     """Padded point batch: xyz [N,3] f32, intensity [N] f32, valid [N] bool.
 
@@ -51,9 +63,9 @@ class PointCloud:
         return self.xyz.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class VoxelGrid:
-    """Dense curved-voxel statistics - TPU-native replacement of the
+    """Dense curved-voxel statistics - tensor replacement of the
     reference's `hash_cloud` (src/ssc.cpp:253-289).
 
     All arrays are flat over the `bin_num` cells of GridConfig.shape
@@ -69,7 +81,7 @@ class VoxelGrid:
         return self.count > 0
 
 
-@struct.dataclass
+@pytree_dataclass
 class ClusterTable:
     """Padded per-frame cluster set - replacement of
     `unordered_map<int, Cluster>` (include/utility.h:180).
@@ -91,7 +103,7 @@ class ClusterTable:
         return self.valid.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class FrameState:
     """One processed frame (analog of `Frame`, include/utility.h:165-185).
 
@@ -117,7 +129,7 @@ class FrameState:
     point_route: jnp.ndarray | None = None
 
 
-@struct.dataclass
+@pytree_dataclass
 class Overflow:
     """Counters for every static-shape cap; silent truncation would corrupt
     metrics (SURVEY.md section 7.3), so each stage reports what it dropped."""

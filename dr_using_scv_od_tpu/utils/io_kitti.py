@@ -10,28 +10,53 @@ Mirrors the reference's loaders:
     SURVEY.md section 7.3);
   * numeric-stem file ordering (fileSort, src/ssc.cpp:12-22).
 
-Decoding uses the native C++ codec (native/io_native.cpp) via ctypes when
-built, with a numpy fallback - build with `make -C native`.
+Decoding uses the native C++ codec (native/io_native.cpp) via ctypes,
+built with `make -C native` on first use, with a numpy fallback where no
+C++ toolchain is available.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
+import warnings
 from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 _NATIVE: Optional[ctypes.CDLL] = None
+_NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+
+
+def _build_native(so: Path) -> bool:
+    """Build the codec library with `make -C native` into a private file
+    and move it into place, so that processes building at once (test
+    workers) never load a half-written library."""
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    try:
+        subprocess.run(["make", "-s", "-C", str(so.parent),
+                        f"OUT={tmp.name}"], check=True,
+                       capture_output=True, text=True)
+    except (OSError, subprocess.CalledProcessError) as e:
+        tmp.unlink(missing_ok=True)
+        warnings.warn(f"native codec build failed, using numpy: "
+                      f"{getattr(e, 'stderr', None) or e}")
+        return False
+    os.replace(tmp, so)
+    return True
 
 
 def _native() -> Optional[ctypes.CDLL]:
     global _NATIVE
     if _NATIVE is not None:
         return _NATIVE
-    so = Path(__file__).resolve().parents[2] / "native" / "libio_native.so"
-    if so.exists():
+    so = _NATIVE_DIR / "libio_native.so"
+    src = _NATIVE_DIR / "io_native.cpp"
+    stale = (not so.exists()
+             or so.stat().st_mtime < src.stat().st_mtime)
+    if not stale or _build_native(so):
         lib = ctypes.CDLL(str(so))
         lib.kitti_bin_num_points.restype = ctypes.c_int64
         lib.kitti_bin_num_points.argtypes = [ctypes.c_char_p]

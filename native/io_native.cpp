@@ -1,4 +1,4 @@
-// Native IO codecs for the TPU-native SCV-OD engine.
+// Native IO codecs for the SCV-OD engine.
 //
 // Replaces the reference's IO-bound native code paths with standalone C++
 // (no ROS/PCL): KITTI .bin/.label decode (reference: src/ssc.cpp:1046-1058

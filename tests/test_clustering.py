@@ -3,6 +3,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from dr_using_scv_od_tpu.ops import clustering
 
@@ -48,6 +49,60 @@ def test_cc_random(rng):
     occ_flat = occ.reshape(-1)
     np.testing.assert_array_equal(got[occ_flat], want[occ_flat])
     # empty cells are self-loops
+    own = np.arange(occ.size)
+    np.testing.assert_array_equal(got[~occ_flat], own[~occ_flat])
+
+
+def _random_grid(shape, density, seed):
+    return np.random.default_rng(seed).random(shape) < density
+
+
+def _seam_grid(shape, density, seed):
+    return np.random.default_rng(seed + 19).random(shape) < density
+
+
+def _azimuth_run_grid():
+    """An isolated low-id voxel P=(0,5,10) and an occupied azimuth run
+    a=5..9 at the same (range, sector): azimuth distance 5, so P must
+    stay its own component (the grid does not wrap in azimuth)."""
+    occ = np.zeros((12, 16, 24), bool)
+    occ[0, 5, 10] = True
+    occ[5:10, 5, 10] = True
+    return occ
+
+
+def _snake_grid():
+    """A long run along sector, a diagonal hop at its end and an isolated
+    voxel."""
+    occ = np.zeros((6, 8, 40), bool)
+    occ[2, 3, :] = True
+    occ[3, 4, 39] = True
+    occ[0, 0, 0] = True
+    return occ
+
+
+@pytest.mark.parametrize("make_occ", [
+    # shape / density sweep
+    lambda: _random_grid((4, 8, 16), 0.3, 0),
+    lambda: _random_grid((12, 16, 24), 0.2, 0),
+    lambda: _random_grid((12, 16, 24), 0.6, 0),
+    # dense random grids whose components cross many azimuth slabs
+    lambda: _seam_grid((12, 16, 24), 0.35, 0),
+    lambda: _seam_grid((12, 16, 24), 0.35, 1),
+    lambda: _seam_grid((12, 16, 24), 0.35, 2),
+    _azimuth_run_grid,
+    _snake_grid,
+], ids=["shape4x8x16-d0.3", "shape12x16x24-d0.2", "shape12x16x24-d0.6",
+        "slabs-seed0", "slabs-seed1", "slabs-seed2",
+        "no-azimuth-wraparound", "snake"])
+def test_cc_matches_union_find(make_occ):
+    """connected_components equals the union-find oracle on every
+    occupied voxel; empty voxels keep their own id."""
+    occ = make_occ()
+    got = np.asarray(clustering.connected_components(jnp.asarray(occ)))
+    want = brute_cc(occ)
+    occ_flat = occ.reshape(-1)
+    np.testing.assert_array_equal(got[occ_flat], want[occ_flat])
     own = np.arange(occ.size)
     np.testing.assert_array_equal(got[~occ_flat], own[~occ_flat])
 
@@ -185,8 +240,8 @@ def test_grid_label_counts_weighted_and_plain():
 
 def test_small_table_lookup_matches_gather():
     """The select-tree lookup must equal table[idx] for bool and
-    multi-bit tables on every index shape (the TPU hot paths replace
-    13 ms [G]-shaped gathers with it)."""
+    multi-bit tables on every index shape (the hot paths use it in place
+    of [G]- and [N]-shaped gathers from small tables)."""
     from dr_using_scv_od_tpu.ops import segment_ops as so
     rng = np.random.default_rng(5)
     for C, bits in ((512, 1), (421, 1), (512, 10), (64, 7)):

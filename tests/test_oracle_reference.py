@@ -1,7 +1,7 @@
 """Reference-semantics oracle tests.
 
 Direct NumPy transcriptions of the reference's two order-sensitive
-algorithms serve as oracles against the vectorized TPU formulations:
+algorithms serve as oracles against the vectorized array formulations:
 
   * `SSC::tracking`'s verdict lattice (src/ssc.cpp:1250-1426) - fuzzed
     tiny scenarios must match models/tracking._pair_step EXACTLY, given
@@ -429,7 +429,7 @@ def test_ri3_fusion_sandwich(seed):
         _pairs(closure)
     missing = p_oracle - p_ours
     assert not missing, (f"{len(missing)} reference fusions missing from "
-                         f"the TPU formulation, e.g. {next(iter(missing))}")
+                         f"the array formulation, e.g. {next(iter(missing))}")
     extra = p_ours - p_closure
-    assert not extra, (f"{len(extra)} TPU fusions not justified by the "
+    assert not extra, (f"{len(extra)} array-path fusions not justified by the "
                        f"predicate closure, e.g. {next(iter(extra))}")
